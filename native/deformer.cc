@@ -5,9 +5,9 @@
 // into shared memory). This is its native rebuild: a pthread pool that
 // (a) assembles shuffled batches out of a big dataset array and
 // (b) elastically deforms batches on the host — for corpora too large to
-// keep resident in HBM, where augmentation must ride the CPU while the TPU
-// trains on the previous batch. The on-device Pallas/XLA path remains the
-// default for HBM-resident datasets.
+// keep resident in device memory, where augmentation must ride the CPU while
+// the device trains on the previous batch. The in-graph XLA path remains the
+// default for resident datasets.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this build).
 //

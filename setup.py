@@ -1,5 +1,5 @@
-"""Packaging for theanet_tpu (reference setup.py equivalent; deps are the
-TPU-native stack instead of numpy+Theano)."""
+"""Packaging for theanet_tpu (reference setup.py equivalent; deps are JAX
+instead of numpy+Theano)."""
 
 from setuptools import find_packages, setup
 
@@ -7,7 +7,7 @@ setup(
     name="theanet_tpu",
     version="0.1.0",
     description=(
-        "TPU-native (JAX/XLA/Pallas) image-classification training framework "
+        "JAX/XLA image-classification training framework "
         "with the capability surface of rakeshvar/theanet"
     ),
     packages=find_packages(include=["theanet_tpu", "theanet_tpu.*"]),

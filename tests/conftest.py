@@ -1,28 +1,22 @@
-"""Test harness config: force the CPU backend with 16 virtual devices so
-sharding tests exercise multi-chip meshes (up to 8 devices) without TPU
-hardware. 16, not 8: the Pallas TPU interpret mode's callback thread pool
-is sized by the JAX device count, and the ring-DP kernel's blocking
-semaphore waits deadlock at startup when the mesh uses EVERY device (the
-round-3 driver-gate failure — ops/interpret_shim.py has the forensics).
-2x headroom over the largest 8-device test mesh makes that impossible;
-meshes themselves still use jax.devices()[:n].
+"""Test harness config: force the CPU backend with 8 virtual devices so
+sharding tests exercise multi-device meshes (up to 8 devices) without
+accelerator hardware.
 
-Set THEANET_TEST_TPU=1 to keep the live backend instead (runs the TPU-only
-statistics tests, e.g. tests/test_tpu_prng_stats.py, on the real chip).
+Tests marked ``gpu`` exercise what only the card can show; they skip here
+with a reason, and ``python chip_smoke.py`` runs the same paths on the GPU.
 
 Every test also runs under a faulthandler watchdog (pytest-timeout is not
 in this image): a test that exceeds its budget dumps EVERY thread's stack
-and hard-exits the pytest process — a hung kernel becomes a loud, fast,
-diagnosable failure instead of a silently wedged run (round 3 lost a
-driver gate to exactly such a hang). Override per test with
-``@pytest.mark.timeout_s(seconds)``; the default budget is deliberately
-generous because the interpret-mode ring/DP tests legitimately take
-minutes on this 1-2 core box.
+and hard-exits the pytest process — a hung test becomes a loud, fast,
+diagnosable failure instead of a silently wedged run. Override per test
+with ``@pytest.mark.timeout_s(seconds)``.
 """
 
 import faulthandler
 import os
 import sys
+
+import pytest
 
 _DEFAULT_TEST_BUDGET_S = float(os.environ.get("THEANET_TEST_BUDGET", "1200"))
 
@@ -32,6 +26,11 @@ def pytest_configure(config):
         "markers",
         "timeout_s(seconds): per-test wall-clock budget for the "
         "faulthandler watchdog (default %ds)" % _DEFAULT_TEST_BUDGET_S,
+    )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs the GPU; skipped on the CPU test backend (chip_smoke.py "
+        "runs the same path on the card)",
     )
 
 
@@ -44,24 +43,32 @@ def pytest_runtest_setup(item):
 def pytest_runtest_teardown(item, nextitem):
     faulthandler.cancel_dump_traceback_later()
 
-if os.environ.get("THEANET_TEST_TPU") != "1":
-    # APPEND to any pre-existing XLA_FLAGS: a setdefault here would be a
-    # no-op when the shell exports unrelated flags (e.g. --xla_dump_to),
-    # jax.devices() would return 1 device, and every skipif(<8 devices)
-    # sharding/DP test would silently skip — a broken collective would
-    # ship with a green run.
-    flag = "--xla_force_host_platform_device_count=16"
-    prev = os.environ.get("XLA_FLAGS", "")
-    if "--xla_force_host_platform_device_count" not in prev:
-        os.environ["XLA_FLAGS"] = (prev + " " + flag).strip()
 
+@pytest.fixture(autouse=True)
+def _gpu_only(request):
+    if request.node.get_closest_marker("gpu") is None:
+        return
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs the GPU; chip_smoke.py runs this path on the card")
 
-    assert len(jax.devices()) >= 16, (
-        "the virtual 16-device CPU pool failed to initialize (JAX was "
-        "imported before conftest set XLA_FLAGS, or the shell forces a "
-        "smaller device count?) — sharding tests would silently skip and "
-        "interpret-mode ring tests could deadlock (see module docstring)"
-    )
+
+# APPEND to any pre-existing XLA_FLAGS: a setdefault here would be a no-op
+# when the shell exports unrelated flags (e.g. --xla_dump_to), jax.devices()
+# would return 1 device, and every skipif(<8 devices) sharding test would
+# silently skip — a broken collective would ship with a green run.
+_flag = "--xla_force_host_platform_device_count=8"
+_prev = os.environ.get("XLA_FLAGS", "")
+if "--xla_force_host_platform_device_count" not in _prev:
+    os.environ["XLA_FLAGS"] = (_prev + " " + _flag).strip()
+
+import jax  # noqa: E402  (must follow the XLA_FLAGS edit)
+
+jax.config.update("jax_platforms", "cpu")
+
+assert len(jax.devices()) >= 8, (
+    "the virtual 8-device CPU pool failed to initialize (JAX was imported "
+    "before conftest set XLA_FLAGS, or the shell forces a smaller device "
+    "count?) — sharding tests would silently skip"
+)

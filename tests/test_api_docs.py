@@ -37,5 +37,5 @@ def test_api_docs_current(tmp_path):
     stale = [n for n in sorted(fresh)
              if committed[n].read_text() != fresh[n].read_text()]
     assert not stale, (
-        f"stale API docs for {stale} — rerun: PYTHONPATH= JAX_PLATFORMS=cpu "
+        f"stale API docs for {stale} — rerun: JAX_PLATFORMS=cpu "
         f"python tools/gen_api_docs.py")

@@ -1,21 +1,9 @@
-"""Suite twin of the driver's multi-chip gate (VERDICT r3 item 5: every
-dryrun phase must be reproducible as a pytest, in the SAME configuration).
-
-This runs ``__graft_entry__.dryrun_multichip(8)`` inline — the conftest
-already provides the 8-device virtual CPU platform, and
-THEANET_DRYRUN_CHILD=1 short-circuits the re-exec — so all five phases
-(GSPMD DP+TP, flagship/deep/flat fused-DP, whole-epoch ring) execute with
-byte-identical specs to what the driver validates. A red gate is therefore
-always reproducible as this red test, and vice versa.
-
-The round-3 gate failure lived exactly in the coverage gap this closes:
-the suite's ring tests ran a smaller 2-conv spec, the dryrun's flagship
-spec x n_data=8 livelocked the interpret mode's semaphore spin
-(ops/interpret_shim.py has the root cause), and no test had ever executed
-the failing configuration.
+"""Suite twin of the multi-chip dryrun: ``__graft_entry__.dryrun_multichip(8)``
+runs inline here — the conftest already provides the 8-device virtual CPU
+platform, and THEANET_DRYRUN_CHILD=1 short-circuits the re-exec — so the
+GSPMD DP+TP phase executes with the very spec the dryrun validates. A red
+dryrun is therefore always reproducible as this red test, and vice versa.
 """
-
-import os
 
 import jax
 import pytest
@@ -25,30 +13,12 @@ pytestmark = pytest.mark.skipif(
 )
 
 
-@pytest.mark.timeout_s(2700)
+@pytest.mark.timeout_s(900)
 def test_dryrun_multichip_8_inline(monkeypatch, capfd):
     monkeypatch.setenv("THEANET_DRYRUN_CHILD", "1")
     import __graft_entry__ as g
 
     g.dryrun_multichip(8)
     out = capfd.readouterr().out
-    for k in range(1, 6):
-        assert f"[dryrun] phase {k}" in out, out
-        assert f"phase {k}" in out and ") OK in" in out, out
-    assert "ring-DP OK" in out, out
-
-
-def test_interpret_shim_applies_on_this_jax():
-    """The livelock shim must actually install on the pinned jax version —
-    if upstream internals drift, this fails loudly instead of the ring
-    tests timing out one by one."""
-    from theanet_tpu.ops import interpret_shim
-
-    assert interpret_shim.apply(), (
-        "interpret_shim could not patch jax's interpret-mode Semaphore.wait "
-        "(upstream drift?) — large ring-DP interpret runs will livelock; "
-        "see theanet_tpu/ops/interpret_shim.py"
-    )
-    from jax._src.pallas.mosaic.interpret import shared_memory as sm
-
-    assert sm.Semaphore.wait is interpret_shim._patched_wait
+    assert "[dryrun] phase 1" in out and ") OK in" in out, out
+    assert "dryrun_multichip OK" in out, out

@@ -1,5 +1,5 @@
 """Elastic augmentation engine tests: identity semantics, resample-path
-equivalence (gather vs MXU matmul), Gaussian smoothing parity with an
+equivalence (gather vs matmul), Gaussian smoothing parity with an
 explicit full-conv reference, clip-margin safety, pflip statistics."""
 
 import numpy as np

@@ -17,9 +17,6 @@ with the framework):
 Each test trains Input -> Hidden(relu10) -> Head for 12 steps (3 epochs,
 annealed LR, maxnorms that bite) through the framework's scanned path and
 asserts per-step cost and end-state params+momentum against the oracle.
-The fused (megastep_deep) implementations of the LOGIT/RBF/SoftAux heads
-are pinned to the scanned path by tests/test_megastep_deep.py, so these
-oracles transitively gate the fused backward too.
 
 Determinism: dropout off; SoftAux's random convex row-mix is made
 deterministic by feeding aux tensors whose two rows are IDENTICAL (the mix

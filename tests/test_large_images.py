@@ -1,28 +1,39 @@
-"""Large-image paths: the auto resample selector must fall back to gather
-(the dense tap matrix is VMEM-sized only for small images), and the full
-pipeline must train on 64x64 3-channel data."""
+"""Large-image paths: a config that names the old 'auto' resample runs the
+gather (the dense tap matrix grows with the square of the pixel count),
+the resample takes no other name, and the full pipeline must train on
+64x64 3-channel data."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
+from theanet_tpu.layers import ElasticLayer
 from theanet_tpu.model import NeuralNet
-from theanet_tpu.ops.elastic import ElasticConfig, elastic_augment
+from theanet_tpu.ops.elastic import resample
 from theanet_tpu.trainer import Trainer
 
 
 def test_auto_uses_gather_for_large_images():
-    cfg = ElasticConfig(img_sz=64, translation=3, zoom=1.1, magnitude=30,
-                        sigma=8, angle=5)
+    kw = dict(img_sz=64, num_maps=3, translation=3, zoom=1.1, magnitude=30,
+              sigma=8, angle=5)
+    layer = ElasticLayer(method="auto", **kw)
+    assert layer.method == "gather"
     x = jnp.asarray(np.random.RandomState(0).rand(2, 3, 64, 64), jnp.float32)
-    out, _ = elastic_augment(jax.random.PRNGKey(0), x, cfg, train=True,
-                             method="auto")
+    out = layer.apply(None, x, key=jax.random.PRNGKey(0), train=True)
     assert out.shape == x.shape
     assert np.isfinite(np.asarray(out)).all()
-    # pallas method also falls back cleanly instead of blowing VMEM
-    out2, _ = elastic_augment(jax.random.PRNGKey(0), x, cfg, train=True,
-                              method="pallas")
-    np.testing.assert_allclose(np.asarray(out), np.asarray(out2), atol=1e-5)
+    out2 = ElasticLayer(**kw).apply(None, x, key=jax.random.PRNGKey(0),
+                                    train=True)
+    np.testing.assert_array_equal(np.asarray(out), np.asarray(out2))
+
+
+@pytest.mark.parametrize("method", ["auto", "pallas"])
+def test_resample_rejects_other_methods(method):
+    x = jnp.zeros((1, 1, 8, 8), jnp.float32)
+    target = jnp.asarray(np.indices((8, 8)), jnp.float32)
+    with pytest.raises(ValueError, match="unknown resample method"):
+        resample(x, target, method=method)
 
 
 def test_full_pipeline_trains_on_64px_3channel():

@@ -11,6 +11,15 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# The download fails without contacting any host: the probes replace
+# urlopen with one that raises, as an offline machine's would.
+_OFFLINE = (
+    "import urllib.request\n"
+    "def _offline(*a, **k): raise OSError('no route to host')\n"
+    "urllib.request.urlopen = _offline\n"
+)
+
+
 def _probe(extra_env):
     env = {k: v for k, v in os.environ.items()
            if k not in ("THEANET_ALLOW_SYNTH_FALLBACK", "THEANET_DATA_DIR")}
@@ -18,7 +27,7 @@ def _probe(extra_env):
     env["JAX_PLATFORMS"] = "cpu"
     env.update(extra_env)
     return subprocess.run(
-        [sys.executable, "-c",
+        [sys.executable, "-c", _OFFLINE +
          "import theanet_tpu.data.mnist as m; print(m.training_x.shape)"],
         env=env, text=True, capture_output=True,
     )

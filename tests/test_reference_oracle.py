@@ -41,7 +41,7 @@ SOFT_REG = {"momentum": 0.95, "rate": 0.5, "maxnorm": 0.8, "L1": 0, "L2": 0}
 INIT_LR = 0.1
 HALF = 2
 STEPS_PER_EPOCH = 5
-EPOCHS = 12   # 60-step horizon (VERDICT r4/r5: extend the oracle reach)
+EPOCHS = 12   # 60-step horizon
 
 CONV_ACT_SLOPE = 0.05  # relu05
 HID_ACT_SLOPE = 0.10   # relu10
@@ -274,7 +274,7 @@ def test_60_step_trajectory_matches_oracle():
 
 # ------------------- conv + pool + RBF centered head -------------------------
 #
-# VERDICT r4 item 3 (oracle-horizon half): the head oracles
+# The head oracles
 # (tests/test_head_oracles.py) pin every head's arithmetic on FLAT nets;
 # this trajectory runs the full conv+pool stack INTO an RBF CenteredOut
 # head with learned centers and a finite junk_dist (reference

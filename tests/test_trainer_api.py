@@ -124,52 +124,6 @@ def test_shuffle_option_trains_and_differs_from_sequential():
     assert not np.allclose(ca, cb)
 
 
-def test_shuffle_fused_matches_scanned_trajectory():
-    """SHUFFLE under MEGAFUSED permutes the epoch's step tensors inside the
-    fused jit with the SAME derivation as the scanned path, so with
-    deterministic steps (no augmentation, no dropout) the two paths must
-    produce the same shuffled trajectory."""
-    from theanet_tpu.model import NeuralNet
-    from theanet_tpu.trainer import Trainer
-
-    spec = [
-        ["InputLayer", {"img_sz": 12}],
-        ["ConvLayer", {"num_maps": 2, "filter_sz": 3, "stride": 1,
-                       "mode": "valid", "actvn": "relu07"}],
-        ["PoolLayer", {"pool_sz": 2}],
-        ["ConvLayer", {"num_maps": 3, "filter_sz": 3, "stride": 1,
-                       "mode": "valid", "actvn": "relu15"}],
-        ["PoolLayer", {"pool_sz": 2}],
-        ["HiddenLayer", {"n_out": 12, "pdrop": 0, "actvn": "relu02"}],
-        ["SoftmaxLayer", {"n_out": 4}],
-    ]
-
-    def mk(mega):
-        prms = {"SEED": 31, "BATCH_SZ": 4, "NUM_EPOCHS": 1,
-                "EPOCHS_TO_TEST": 1, "TEST_SAMP_SZ": 4,
-                "INIT_LEARNING_RATE": 0.1, "EPOCHS_TO_HALF_RATE": 2,
-                "SHUFFLE": True, "MEGAFUSED": mega}
-        net = NeuralNet([list(l) for l in spec], prms)
-        rng = np.random.RandomState(6)
-        x = rng.rand(24, 1, 12, 12).astype(np.float32)
-        y = rng.randint(0, 4, 24).astype(np.int32)
-        return net, Trainer(net, x, y, x[:4], y[:4])
-
-    net_f, tr_f = mk(True)
-    assert tr_f._mega is not None  # SHUFFLE no longer disqualifies
-    net_s, tr_s = mk(False)
-    for _ in range(2):
-        _, cf, _ = tr_f.run_epoch()
-        _, cs, _ = tr_s.run_epoch()
-        np.testing.assert_allclose(cf, cs, atol=3e-5)
-        net_f.inc_epoch_set_rate()
-        net_s.inc_epoch_set_rate()
-    df, ds = tr_f.checkpoint_dict(), tr_s.checkpoint_dict()
-    for lf, ls in zip(df["allwts"], ds["allwts"]):
-        for wf, wsa in zip(lf, ls):
-            np.testing.assert_allclose(wf, wsa, atol=1e-4)
-
-
 def test_evaluate_preds_feats():
     """evaluate(preds_feats=True) appends the head's (features, y_preds)
     over the window — reference get_test_model(preds_feats=True)

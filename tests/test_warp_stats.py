@@ -1,11 +1,11 @@
-"""Statistical cross-check of the three warp implementations against the
+"""Statistical cross-check of the two warp implementations against the
 reference's augmentation formulas (inlayers.py:77-122).
 
 Exact PRNG parity with Theano RandomStreams is impossible by construction
 (SURVEY.md §7 hard part (a)), so augmentation parity is defined at the
-distribution level: the jax warp (ops/elastic.sample_warp), the C++ host
-warp (native/deformer.cc theanet_make_warp), and the fused-kernel in-kernel
-warp (ops/megastep._augment_block) must all produce displacement fields
+distribution level: the jax warp (ops/elastic.sample_warp) and the C++ host
+warp (native/deformer.cc theanet_make_warp) must both produce displacement
+fields
 whose probe-pixel moments match an INDEPENDENT numpy Monte-Carlo
 implementation of the reference arithmetic:
 
@@ -167,53 +167,6 @@ def native_fields(cfg):
     return out
 
 
-class _Ref:
-    """Minimal pl.Ref stand-in: _augment_block only reads items/slices."""
-
-    def __init__(self, a):
-        self._a = a
-
-    def __getitem__(self, i):
-        return self._a[i]
-
-
-def megastep_fields(cfg):
-    """Recover the fused kernel's effective warp by feeding coordinate
-    images through _augment_block (pure jnp when nearest=True): the
-    nearest-gather of the y/x coordinate planes IS round(clip(ty/tx))."""
-    from types import SimpleNamespace
-
-    from theanet_tpu.ops.elastic import gaussian_band_matrices
-    from theanet_tpu.ops.megastep import _augment_block
-
-    spec = SimpleNamespace(
-        img=H, hw=H * H, color=False, invert=False,
-        translation=float(cfg.get("translation", 0)),
-        magnitude=float(cfg.get("magnitude", 0)),
-        zoom=float(cfg.get("zoom", 1)), angle=float(cfg.get("angle", 0)),
-        nearest=True, pflip=0.0, exact_movement=True,
-    )
-    gh, gw = gaussian_band_matrices(H, H, int(cfg.get("sigma", 1)))
-    ss = jnp.asarray(np.kron(gh, gw).astype(np.float32))
-    yy, xx = np.indices((H, H)).astype(np.float32)
-    coords = jnp.asarray(
-        np.stack([yy.ravel(), xx.ravel()])
-    )  # (2, HW): rows act as a B=2 batch sharing one warp
-
-    def one(key):
-        k1, k2 = jax.random.split(key)
-        ub = jax.random.bits(k1, (1, 1, 8), jnp.uint32)
-        fb = jax.random.bits(k2, (1, H * H, 4),
-                             jnp.uint32).transpose(0, 2, 1)
-        pb = jnp.zeros((1, 2, H * H), jnp.uint32)
-        aug = _augment_block(spec, coords, _Ref(ub), _Ref(fb), _Ref(pb),
-                             _Ref(ss))
-        return aug.reshape(2, H, H)
-
-    keys = jax.random.split(jax.random.PRNGKey(77), N_FIELDS)
-    return np.asarray(jax.jit(jax.vmap(one))(keys))
-
-
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_jax_warp_matches_reference_moments(name, oracle_fields):
     _assert_moments_match(jax_fields(CONFIGS[name]), oracle_fields[name],
@@ -224,9 +177,3 @@ def test_jax_warp_matches_reference_moments(name, oracle_fields):
 def test_native_warp_matches_reference_moments(name, oracle_fields):
     _assert_moments_match(native_fields(CONFIGS[name]), oracle_fields[name],
                           f"native:{name}")
-
-
-@pytest.mark.parametrize("name", list(CONFIGS))
-def test_megastep_warp_matches_reference_moments(name, oracle_fields):
-    _assert_moments_match(megastep_fields(CONFIGS[name]), oracle_fields[name],
-                          f"megastep:{name}", rounded=True)

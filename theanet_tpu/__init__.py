@@ -1,9 +1,9 @@
-"""theanet_tpu — a TPU-native (JAX/XLA/Pallas) image-classification training
-framework with the full capability surface of the Theano reference
-``rakeshvar/theanet``: in-graph per-batch augmentation, dict-driven network
-specs, per-layer momentum SGD with L1/L2/max-norm, multiple output heads,
-pickle checkpoint/resume, and pluggable dataset modules — redesigned for the
-MXU/HBM/ICI rather than translated.
+"""theanet_tpu — a JAX/XLA image-classification training framework with the
+full capability surface of the Theano reference ``rakeshvar/theanet``:
+in-graph per-batch augmentation, dict-driven network specs, per-layer
+momentum SGD with L1/L2/max-norm, multiple output heads, pickle
+checkpoint/resume, and pluggable dataset modules, with the dataset resident
+in device memory and one compiled program per epoch.
 """
 
 from . import layers

@@ -5,9 +5,9 @@ Capability parity with the reference activation registry
 linear, scaled_tanh (1.7*tanh(2x/3)), relu, tanh, and the hundred leaky
 relus ``relu00`` .. ``relu99`` whose negative slope is i/100.
 
-TPU notes: all of these are VPU elementwise ops that XLA fuses into the
-surrounding matmul/conv epilogues; the registry resolves names at graph
-*build* time so nothing string-shaped ever enters a jitted trace.
+All of these are elementwise ops that XLA fuses into the surrounding
+matmul/conv epilogues; the registry resolves names at graph *build* time so
+nothing string-shaped ever enters a jitted trace.
 """
 
 from __future__ import annotations

@@ -1,9 +1,10 @@
 """MNIST data module (contract parity with reference data/mnist.py:21-54).
 
 Exports module-level ``training_x, training_y, testing_x, testing_y`` with
-train+valid merged into a 60k (N, 1, 28, 28) training set. Looks for a local
-``mnist.pkl.gz`` (same file the reference downloads) in several places before
-attempting a download.
+train+valid merged into a 60k (N, 1, 28, 28) training set, loaded on the
+first access of one of them (importing the module reads and fetches
+nothing). Looks for a local ``mnist.pkl.gz`` (same file the reference
+downloads) in several places before attempting a download.
 
 When the file is missing and cannot be downloaded, loading FAILS by default:
 a run labeled "mnist" must never silently train on non-MNIST data (accuracy
@@ -102,4 +103,13 @@ def _load():
     return training_x, training_y, testing_x, testing_y.astype(np.int32)
 
 
-training_x, training_y, testing_x, testing_y = _load()
+_NAMES = ("training_x", "training_y", "testing_x", "testing_y")
+_loaded = {}
+
+
+def __getattr__(name):
+    if name not in _NAMES:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    if not _loaded:
+        _loaded.update(zip(_NAMES, _load()))
+    return _loaded[name]

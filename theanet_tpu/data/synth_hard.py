@@ -2,8 +2,8 @@
 
 The plain synthetic set (theanet_tpu.data.synth) is linearly separable
 enough that the reference recipe saturates at 0.00% test error, which
-makes fused-vs-scanned epoch tables nearly evidence-free (VERDICT r4,
-weak item 1): two paths can agree trivially when both sit at zero.
+makes epoch tables of two execution paths nearly evidence-free: they can
+agree trivially when both sit at zero.
 This variant is constructed so params/mnist_cnn.prms lands MID-RANGE
 (2-10% test error), where a semantic difference between execution paths
 would visibly bend the error curve:

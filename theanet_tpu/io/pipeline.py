@@ -1,15 +1,15 @@
 """Host-side input pipeline: native batch assembly + CPU elastic deformation
 with a double-buffered host->device feed.
 
-This is the TPU-native rebuild of the reference's extras/deformer.py (a
+This is the JAX-side rebuild of the reference's extras/deformer.py (a
 multiprocessing.Process pool + mp.Queue deforming batches of a shared-memory
 array in place). Here the heavy lifting is a C++ thread pool
 (native/deformer.cc, loaded via ctypes), and the prefetcher overlaps batch
 assembly + host augmentation + device upload with device compute — the
 producer/consumer pattern of the reference, double-buffered.
 
-Use this for corpora too large to keep resident in HBM; for HBM-resident
-datasets the in-graph Pallas/XLA augmentation path is faster (no host round
+Use this for corpora too large to keep resident in device memory; for
+resident datasets the in-graph augmentation path is faster (no host round
 trip) and remains the default.
 
 The C++ library is built on demand with make/g++; every entry point has a

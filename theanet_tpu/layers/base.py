@@ -1,9 +1,9 @@
-"""Layer base class for the TPU-native layer library.
+"""Layer base class for the layer library.
 
 Design: a layer object is *static build-time metadata* (shapes, activation
 names, regularization hyperparameters, initial weights as numpy arrays) plus a
 pure ``apply`` function that is traced under ``jax.jit``. Train vs. eval is a
-static ``train: bool`` argument on ``apply`` — the TPU-native replacement for
+static ``train: bool`` argument on ``apply`` — the JAX replacement for
 the reference's dual-graph ``TestVersion`` pattern (reference:
 theanet/neuralnet.py:93,200 builds a twin eval graph per layer; here one object
 owns both branches and the jit cache holds the two compiled programs).

@@ -1,8 +1,8 @@
 """Convolution / pooling layers: ConvLayer, PoolLayer, MeanLayer.
 
 Capability parity with reference theanet/layer/convpool.py, built on
-``lax.conv_general_dilated`` / ``lax.reduce_window`` so XLA tiles them onto
-the MXU / VPU directly.
+``lax.conv_general_dilated`` / ``lax.reduce_window``, which XLA hands to
+cuDNN or its own fused kernels.
 """
 
 from __future__ import annotations
@@ -11,31 +11,12 @@ import math
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from ..activations import activation_by_name
 from ..inits import init_wb
 from .base import Layer
 
 __all__ = ["ConvLayer", "PoolLayer", "MeanLayer"]
-
-
-def _use_pallas_conv(x, w, mode, stride):
-    """Route eligible convs to the Pallas per-tap kernel
-    (ops/conv_pallas.py) when THEANET_PALLAS_CONV=1. OPT-IN ONLY: measured
-    on v5e at the bench --wide conv2 shape (64->128 @ 27x27, batch 256,
-    bf16), lax.conv runs 438 us fwd / 752 us fwd+bwd vs this kernel's
-    1018 / 2213 — Mosaic's layout rules (rolled vectors refuse to
-    concatenate, rotate is 32-bit-only) cap the kernel at K=C per-tap
-    matmuls, which cannot beat XLA's im2col at MXU-friendly shapes. Kept
-    as the measured record + a base for future Mosaic capabilities."""
-    import os
-
-    if os.environ.get("THEANET_PALLAS_CONV") != "1":
-        return False
-    from ..ops.conv_pallas import eligible
-
-    return eligible(x.shape, w.shape, mode, stride)
 
 
 class ConvLayer(Layer):
@@ -110,19 +91,12 @@ class ConvLayer(Layer):
         # reverse into the convolution's window; grads flow through it.
         w = w[:, :, ::-1, ::-1]
         f = self.filter_sz
-        if _use_pallas_conv(x, w, self.mode, self.stride):
-            from ..ops.conv_pallas import conv3x3_valid
-
-            out = conv3x3_valid(x, w)
-            act = activation_by_name(self.actvn)
-            return act(out.astype(jnp.float32)
-                       + b[None, :, None, None]).astype(x.dtype)
         if self.mode == "valid":
             padding = [(0, 0), (0, 0)]
         else:  # 'full' and 'same' both run a full conv (convpool.py:53-56)
             padding = [(f - 1, f - 1), (f - 1, f - 1)]
         # f32 accumulation hint only in full precision: with bf16 operands the
-        # MXU accumulates in f32 internally anyway, and a widened output dtype
+        # tensor cores accumulate in f32 anyway, and a widened output dtype
         # breaks the conv transpose rule (bf16 operand x f32 cotangent).
         acc = {"preferred_element_type": jnp.float32} if x.dtype == jnp.float32 else {}
         out = jax.lax.conv_general_dilated(
@@ -170,14 +144,13 @@ def _maxpool_bwd(p, out_sz, ignore_border, res, g):
     # Theano tie semantics (pool.MaxPoolGrad): EVERY element equal to its
     # window max receives the full output gradient — XLA's native
     # select-and-scatter picks a single element, which diverges from the
-    # reference (and from the fused epoch kernel) on data with exact ties,
-    # e.g. MNIST's constant-background patches.
+    # reference on data with exact ties, e.g. MNIST's constant-background
+    # patches.
     #
     # Shape choreography: window the input as (B, M, o, p, o, p) and let
     # the pooled/gradient tensors BROADCAST against it — XLA fuses the
     # compare+select into one pass over x, where materializing upsampled
-    # copies (jnp.repeat) cost ~3 extra full-tensor round trips (measured
-    # 1.46 ms -> ~0.5 ms for the wide row's pool1 backward).
+    # copies (jnp.repeat) would cost ~3 extra full-tensor round trips.
     x, pooled = res
     in_sz = x.shape[2]
     full = out_sz * p

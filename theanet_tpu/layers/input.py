@@ -1,9 +1,9 @@
 """Input-stage layers: InputLayer, ElasticLayer, ColorLayer.
 
 Capability parity with reference theanet/layer/inlayers.py and
-theanet/layer/color.py, re-architected for TPU: augmentation is still a layer
-of the compiled step (no host round-trip), but randomness comes from explicit
-jax PRNG keys and the heavy resample rides the MXU (see theanet_tpu.ops.elastic).
+theanet/layer/color.py: augmentation is still a layer of the compiled step
+(no host round-trip), but randomness comes from explicit jax PRNG keys and the
+resample is one matrix product or gather (see theanet_tpu.ops.elastic).
 """
 
 from __future__ import annotations
@@ -56,7 +56,7 @@ class ElasticLayer(Layer):
         rand_gen=None,
         invert_image=False,
         nearest=False,
-        method="auto",
+        method="gather",
     ):
         super().__init__()
         assert zoom > 0
@@ -71,7 +71,9 @@ class ElasticLayer(Layer):
             invert_image=invert_image,
             nearest=nearest,
         )
-        self.method = method
+        # 'auto' was the default's name in older configs and checkpoints;
+        # it chose the gather on the GPU, which is now the default.
+        self.method = "gather" if method == "auto" else method
         self.out_sz = img_sz
         self.num_maps = num_maps
         self.n_out = num_maps * img_sz**2

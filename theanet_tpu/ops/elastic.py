@@ -1,4 +1,4 @@
-"""Elastic / affine / noise augmentation ops, TPU-native.
+"""Elastic / affine / noise augmentation ops.
 
 Semantics reproduce the reference augmentation engine (reference:
 theanet/layer/inlayers.py:29-163):
@@ -13,20 +13,21 @@ theanet/layer/inlayers.py:29-163):
     floor and stay in-bounds only because of it (inlayers.py:121-137);
   * zoom is log-symmetric (x in [1/zoom, zoom]); angle is degrees.
 
-TPU-first design notes:
+Design notes:
 
   * The Gaussian smoothing of the elastic field is expressed as two small
     banded matmuls (the reference builds an explicit (2s+1)^2 kernel and runs
     a 'full' conv then crops, inlayers.py:87-96 — mathematically identical to
     'same' zero-padded convolution, and the Gaussian is separable, so
-    ``G_h @ field @ G_w^T`` is exact and runs on the MXU).
+    ``G_h @ field @ G_w^T`` is exact).
   * Because the warp is shared across the batch, resampling is a fixed linear
     map of the flattened image: out = x_flat @ S^T with S a (hw, hw) matrix
-    holding the <=4 bilinear taps per output pixel. Building S from one-hots
-    and doing one matmul turns a gather-bound op into MXU work
-    (``method='matmul'``). For large images S is too big; ``method='gather'``
-    uses XLA's native gather. ``method='auto'`` picks by image size
-    (hw <= 1600 -> matmul).
+    holding the <=4 bilinear taps per output pixel (``method='matmul'``).
+    ``method='gather'``, the default, indexes the taps with XLA's gather
+    instead. Inside the flagship's train step on an H100 (700 W) the gather
+    took 147 us per step against the matmul's 155-157 us at 28x28, and
+    217-238 us against 297-322 us at 64x64, in both interpolation modes
+    (tools/resample_timing.py).
 """
 
 from __future__ import annotations
@@ -100,10 +101,9 @@ def sample_warp(key, cfg: ElasticConfig, h: int, w: int, with_debug: bool = Fals
     """
     k_sc, k_el = jax.random.split(key)
     # ONE vector draw covers all seven affine scalars (translation y/x,
-    # origin y/x, zoom y/x, theta). The training step is kernel-launch-bound
-    # at reference batch sizes, and each separate RNG call is a distinct
-    # rng-bit-generator kernel — consolidating five draws into one removes
-    # four launches per step. Statistically identical to separate draws.
+    # origin y/x, zoom y/x, theta). Each separate RNG call is a distinct
+    # rng-bit-generator op — consolidating five draws into one removes four
+    # ops per step. Statistically identical to separate draws.
     u = jax.random.uniform(k_sc, (7,), minval=-1.0, maxval=1.0)
     target = jnp.asarray(np.indices((h, w)), dtype=jnp.float32)
     debug = {}
@@ -185,7 +185,7 @@ def _resample_gather(x, ty, tx, nearest: bool):
 def _resample_matrix(ty, tx, h, w, nearest: bool):
     """Dense (hw, hw) sampling matrix S with S[p, q] = tap weight of source
     pixel q for output pixel p. out = x_flat @ S^T. Exact same arithmetic as
-    the gather path; it just rides the MXU instead of the gather unit."""
+    the gather path, done as one matrix product."""
     hw = h * w
     cols = jax.lax.broadcasted_iota(jnp.int32, (hw, hw), 1)
 
@@ -202,9 +202,7 @@ def _resample_matrix(ty, tx, h, w, nearest: bool):
     q00 = (topp * w + left).reshape(hw, 1)
     # One compare + three column rolls instead of four hw^2 compares: the
     # +1/+w/+w+1 taps are column shifts of the q00 one-hot, and the warp
-    # clip to size-1-.001 keeps q00+w+1 <= hw-1 so no roll wraps — the
-    # same construction the fused kernels use (megastep._augment_block,
-    # elastic_pallas).
+    # clip to size-1-.001 keeps q00+w+1 <= hw-1 so no roll wraps.
     e = (cols == q00).astype(jnp.float32)
     return (e * ((1 - fy) * (1 - fx))
             + jnp.roll(e, 1, axis=1) * ((1 - fy) * fx)
@@ -212,33 +210,18 @@ def _resample_matrix(ty, tx, h, w, nearest: bool):
             + jnp.roll(e, w + 1, axis=1) * (fy * fx))
 
 
-def resample(x, target, *, nearest: bool = False, method: str = "auto"):
+def resample(x, target, *, nearest: bool = False, method: str = "gather"):
     """Resample batch x (B, C, H, W) at warp ``target`` (2, h, w).
 
-    method: 'gather' | 'matmul' | 'pallas' | 'auto' (matmul for hw <= 1600,
-    where the dense sampling matrix is small enough to be a clear MXU win;
-    gather above).
+    method: 'gather' | 'matmul' (see the module notes).
     """
     b, c, h, w = x.shape
     # Resample math runs in f32 regardless of the network compute dtype (the
     # tap weights and warp are f32; mixed-dtype dots are not allowed).
     x = x.astype(jnp.float32)
     ty, tx = _clip_warp(target, h, w)
-    if method == "auto":
-        # The dense (hw, hw) sampling matrix costs hw^2 floats (2.4 MB at
-        # 28x28 — VMEM-friendly; 67 MB at 64x64 — hopeless) and 2*B*C*hw^2
-        # matmul FLOPs, so the MXU trick only wins for small images.
-        method = "matmul" if h * w <= 1600 else "gather"
-    if method == "pallas" and h * w > 1600:
-        # same VMEM bound the auto path (and elastic_augment) applies: the
-        # fused kernel's (hw, hw) tap matrix would not fit on-chip
-        method = "gather"
     if method == "gather":
         return _resample_gather(x, ty, tx, nearest)
-    if method == "pallas":
-        from .elastic_pallas import elastic_resample_pallas
-
-        return elastic_resample_pallas(x, ty, tx, nearest=nearest)
     if method == "matmul":
         s = _resample_matrix(ty, tx, h, w, nearest)
         flat = x.reshape(b * c, h * w)
@@ -265,7 +248,7 @@ def elastic_augment(
     cfg: ElasticConfig,
     *,
     train: bool = True,
-    method: str = "auto",
+    method: str = "gather",
     with_debug: bool = False,
 ):
     """Full augmentation pipeline. In eval mode (or identity config) only the
@@ -281,26 +264,9 @@ def elastic_augment(
 
     k_warp, k_flip = jax.random.split(key)
     target, debug = sample_warp(k_warp, cfg, x.shape[2], x.shape[3], with_debug)
-    if method == "pallas" and x.shape[2] * x.shape[3] > 1600:
-        # The fused kernel's tap matrix would not fit VMEM; use the XLA
-        # gather path for large images.
-        method = "gather"
-    if method == "pallas":
-        # Fully fused kernel: resample + pflip in one VMEM-resident program
-        # (x is already inverted above).
-        from .elastic_pallas import elastic_resample_pallas
-
-        h, w = x.shape[2], x.shape[3]
-        ty, tx = _clip_warp(target, h, w)
-        seed = jax.random.randint(k_flip, (), 0, 2**31 - 1, dtype=jnp.int32)
-        out = elastic_resample_pallas(
-            x.astype(jnp.float32), ty, tx,
-            nearest=cfg.nearest, pflip=cfg.pflip, seed=seed,
-        )
-    else:
-        out = resample(x, target, nearest=cfg.nearest, method=method)
-        if cfg.pflip:
-            out = pixel_flip(k_flip, out, cfg.pflip)
+    out = resample(x, target, nearest=cfg.nearest, method=method)
+    if cfg.pflip:
+        out = pixel_flip(k_flip, out, cfg.pflip)
     if with_debug:
         idg = np.indices((x.shape[2], x.shape[3]))
         debug["displacement"] = target - jnp.asarray(idg, dtype=jnp.float32)

@@ -1,11 +1,11 @@
 """Multi-chip parallelism: device mesh + sharding rules.
 
 The reference is single-process single-device (SURVEY.md §2.4: no DP/TP/PP and
-no comm backend — Theano compiles for one device). The TPU-native design
-scales the same training step over a 2-D ``jax.sharding.Mesh``:
+no comm backend — Theano compiles for one device). This design scales the
+same training step over a 2-D ``jax.sharding.Mesh``:
 
   * axis "data"  — batch (data parallel): activations are sharded on the
-    batch dimension; XLA inserts the gradient psum over ICI automatically
+    batch dimension; XLA inserts the gradient all-reduce automatically
     when the batch-sharded loss meets replicated parameters.
   * axis "model" — tensor parallel over the wide dense layers: a hidden
     layer's W (n_in, n_out) is sharded on n_out and its bias likewise, the
@@ -13,18 +13,21 @@ scales the same training step over a 2-D ``jax.sharding.Mesh``:
     through the pair and XLA inserts exactly one collective at the head
     reduction. Conv filters and small params stay replicated.
 
-Datasets are kept replicated (they are small and live in HBM once); each
-step's batch slice gets a sharding constraint so all compute downstream of
-the input layer is distributed. This is GSPMD-style: we annotate, XLA plans
-the collectives over ICI.
+Datasets are kept replicated (they are small and live in device memory
+once); each step's batch slice gets a sharding constraint so all compute
+downstream of the input layer is distributed. This is GSPMD-style: we
+annotate, XLA plans the collectives (NCCL on GPUs). The cards of one host
+reach each other all to all, so the mesh is a plain reshape of the device
+list.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
 
+import numpy as np
+
 import jax
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..layers import HiddenLayer, OutputMixin, SoftAuxLayer
@@ -52,7 +55,7 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, devices=None):
             "XLA_FLAGS=--xla_force_host_platform_device_count=N for a "
             "virtual CPU mesh) or shrink the mesh."
         )
-    grid = mesh_utils.create_device_mesh((n_data, n_model), devices=devices[: n_data * n_model])
+    grid = np.asarray(devices[: n_data * n_model]).reshape(n_data, n_model)
     return Mesh(grid, ("data", "model"))
 
 

@@ -10,7 +10,7 @@ is committed (docs are readable without running anything), and
 tests/test_api_docs.py regenerates to a temp dir and diffs, so the
 committed pages cannot drift from the code.
 
-Usage:  PYTHONPATH= JAX_PLATFORMS=cpu python tools/gen_api_docs.py [outdir]
+Usage:  JAX_PLATFORMS=cpu python tools/gen_api_docs.py [outdir]
 """
 
 import importlib
@@ -45,15 +45,6 @@ MODULES = [
     "theanet_tpu.io.pipeline",
     "theanet_tpu.ops",
     "theanet_tpu.ops.elastic",
-    "theanet_tpu.ops.elastic_pallas",
-    "theanet_tpu.ops.conv_pallas",
-    "theanet_tpu.ops.megastep",
-    "theanet_tpu.ops.megastep_deep",
-    "theanet_tpu.ops.megastep_mlp",
-    "theanet_tpu.ops.megastep_dp",
-    "theanet_tpu.ops.megastep_ring",
-    "theanet_tpu.ops.fused_mlp",
-    "theanet_tpu.ops.interpret_shim",
     "theanet_tpu.parallel",
     "theanet_tpu.parallel.mesh",
 ]
